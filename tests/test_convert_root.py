@@ -14,7 +14,7 @@ import types
 import numpy as np
 import pytest
 
-from npswf_tpu.io.rawstream import read_segment
+from npswf.io.rawstream import read_segment
 
 
 def _obj_array(list_of_arrays):
@@ -126,7 +126,7 @@ def fake_root(monkeypatch, tmp_path):
 
 
 def test_convert_primary_fields(fake_root, tmp_path):
-    from npswf_tpu.tools.convert_root import convert
+    from npswf.tools.convert_root import convert
     input_path, truth = fake_root
     out = str(tmp_path / "seg.npz")
     n = convert(input_path, out)
@@ -147,7 +147,7 @@ def test_convert_primary_fields(fake_root, tmp_path):
 def test_convert_payload_carries_all_of_T_minus_waveform(fake_root, tmp_path):
     """The FastCloneAndFilter contract (ref TEST_2.C:88-122): every T branch
     except NPS.cal.fly.adcSampWaveform reaches the payload."""
-    from npswf_tpu.tools.convert_root import convert, WAVEFORM_BRANCH
+    from npswf.tools.convert_root import convert, WAVEFORM_BRANCH
     input_path, truth = fake_root
     out = str(tmp_path / "seg.npz")
     convert(input_path, out)
@@ -181,7 +181,7 @@ def test_convert_payload_carries_all_of_T_minus_waveform(fake_root, tmp_path):
 
 
 def test_convert_entry_stop(fake_root, tmp_path):
-    from npswf_tpu.tools.convert_root import convert
+    from npswf.tools.convert_root import convert
     input_path, truth = fake_root
     out = str(tmp_path / "seg2.npz")
     n = convert(input_path, out, entry_stop=2)
@@ -193,7 +193,7 @@ def test_convert_entry_stop(fake_root, tmp_path):
 
 
 def test_convert_missing_input_path(fake_root):
-    from npswf_tpu.tools.convert_root import convert
+    from npswf.tools.convert_root import convert
     with pytest.raises(SystemExit, match="Cannot open file"):
         convert("/nonexistent/file.root", "/tmp/never.npz")
 
@@ -216,7 +216,7 @@ def test_real_uproot_raw_round_trip(tmp_path):
     import awkward as ak
     import uproot
 
-    from npswf_tpu.tools.convert_root import convert
+    from npswf.tools.convert_root import convert
 
     rng = np.random.default_rng(11)
     E = 4
@@ -253,9 +253,9 @@ def test_payload_round_trips_into_wf_output(fake_root, tmp_path, small_cfg,
     """converted -> processed: the WF output preserves every payload column
     (the reference's output file keeps the whole filtered input,
     README.md:101-102)."""
-    from npswf_tpu.tools.convert_root import convert
-    from npswf_tpu.runtime.executor import run_segment
-    from npswf_tpu.io.writer import read_wf
+    from npswf.tools.convert_root import convert
+    from npswf.runtime.executor import run_segment
+    from npswf.io.writer import read_wf
     input_path, truth = fake_root
     seg_path = str(tmp_path / "seg3.npz")
     convert(input_path, seg_path)

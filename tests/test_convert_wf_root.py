@@ -20,7 +20,7 @@ import os
 import numpy as np
 import pytest
 
-from npswf_tpu.io.writer import WFWriter, read_wf
+from npswf.io.writer import WFWriter, read_wf
 from tests.uproot_stub import install_stub
 
 HAVE_REAL_UPROOT = importlib.util.find_spec("uproot") is not None
@@ -34,9 +34,9 @@ def stub_uproot(monkeypatch):
 def _make_wf_file(tmp_path, small_cfg, small_cal, payload=None):
     """Run the real pipeline on a few synthetic events and write a WF file."""
     import jax.numpy as jnp
-    from npswf_tpu.engine.pipeline import EventBatch, process_batch
-    from npswf_tpu.io.decode import DecodedBatch
-    from npswf_tpu.utils.synthetic import make_events
+    from npswf.engine.pipeline import EventBatch, process_batch
+    from npswf.io.decode import DecodedBatch
+    from npswf.utils.synthetic import make_events
     cfg = small_cfg
     E, B = 5, cfg.nblocks
     truth = make_events(cfg, small_cal, E, occupancy=0.3, seed=31)
@@ -68,7 +68,7 @@ def _make_wf_file(tmp_path, small_cfg, small_cal, payload=None):
 
 
 def test_wf_tree_round_trip_sorted(stub_uproot, tmp_path, small_cfg, small_cal):
-    from npswf_tpu.tools.convert_wf_to_root import convert, REFERENCE_BRANCHES
+    from npswf.tools.convert_wf_to_root import convert, REFERENCE_BRANCHES
     path, out, decoded = _make_wf_file(tmp_path, small_cfg, small_cal)
     root_path = str(tmp_path / "out.root")
     n = convert(path, root_path)
@@ -102,7 +102,7 @@ def test_wf_tree_round_trip_sorted(stub_uproot, tmp_path, small_cfg, small_cal):
 
 
 def test_payload_restoration(stub_uproot, tmp_path, small_cfg, small_cal):
-    from npswf_tpu.tools.convert_wf_to_root import convert
+    from npswf.tools.convert_wf_to_root import convert
     flat = np.arange(5.0)
     ragged = np.asarray([0.0, 1.0, 2.0, 3.0, 4.0, 5.0])
     offsets = np.asarray([0, 2, 3, 3, 5, 6], np.int64)
@@ -134,8 +134,8 @@ def test_payload_restoration(stub_uproot, tmp_path, small_cfg, small_cal):
 
 
 def test_empty_wf_file_converts(stub_uproot, tmp_path):
-    from npswf_tpu.io.writer import write_empty_wf
-    from npswf_tpu.tools.convert_wf_to_root import convert, REFERENCE_BRANCHES
+    from npswf.io.writer import write_empty_wf
+    from npswf.tools.convert_wf_to_root import convert, REFERENCE_BRANCHES
     path = str(tmp_path / "empty.npz")
     write_empty_wf(path)
     root_path = str(tmp_path / "empty.root")
@@ -197,7 +197,7 @@ def test_root_output_schema_snapshot(stub_uproot, tmp_path, small_cfg,
         NPSWF_UPDATE_SNAPSHOTS=1 python -m pytest \
             tests/test_convert_wf_root.py -k snapshot
     """
-    from npswf_tpu.tools.convert_wf_to_root import convert
+    from npswf.tools.convert_wf_to_root import convert
     path, *_ = _make_wf_file(tmp_path, small_cfg, small_cal)
     root_path = str(tmp_path / "schema.root")
     convert(path, root_path)
@@ -226,7 +226,7 @@ def test_real_uproot_round_trip(tmp_path, small_cfg, small_cal):
     the suite."""
     import uproot
 
-    from npswf_tpu.tools.convert_wf_to_root import convert
+    from npswf.tools.convert_wf_to_root import convert
     path, *_ = _make_wf_file(tmp_path, small_cfg, small_cal)
     root_path = str(tmp_path / "real.root")
     n = convert(path, root_path)

@@ -7,8 +7,8 @@ TRF fit) and reports sane figures on a tiny sample.
 import numpy as np
 import pytest
 
-from npswf_tpu.tools.cpu_baseline import measure_cpu_baseline
-from npswf_tpu.utils.synthetic import make_events
+from npswf.tools.cpu_baseline import measure_cpu_baseline
+from npswf.utils.synthetic import make_events
 
 pytest.importorskip("scipy.optimize")
 

@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from npswf_tpu.engine.pipeline import EventBatch, make_pipeline, process_batch
-from npswf_tpu.golden.reference import cluster_gate_golden, find_pulses_golden
-from npswf_tpu.utils.synthetic import make_events
+from npswf.engine.pipeline import EventBatch, make_pipeline, process_batch
+from npswf.golden.reference import cluster_gate_golden, find_pulses_golden
+from npswf.utils.synthetic import make_events
 
 
 def _batch(cfg, cal, E=3, seed=7, occupancy=0.05, **kw):
@@ -132,8 +132,8 @@ def test_pipeline_jit_consistency(cfg, cal):
 
 
 def test_diagnostics_match_golden(cfg, cal):
-    from npswf_tpu.engine.diagnostics import block_diagnostics
-    from npswf_tpu.golden.reference import diagnostics_golden
+    from npswf.engine.diagnostics import block_diagnostics
+    from npswf.golden.reference import diagnostics_golden
     truth = make_events(cfg, cal, 1, occupancy=0.05, seed=19)
     d = block_diagnostics(cfg, jnp.asarray(truth.signal))
     g = diagnostics_golden(cfg, truth.signal[0])
@@ -149,10 +149,10 @@ def test_executor_with_mesh(cfg, cal, tmp_path):
     import jax
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from npswf_tpu.io.rawstream import build_segment, encode_event_stream
-    from npswf_tpu.runtime.executor import run_segment
-    from npswf_tpu.parallel.mesh import make_mesh
-    from npswf_tpu.io.writer import read_wf
+    from npswf.io.rawstream import build_segment, encode_event_stream
+    from npswf.runtime.executor import run_segment
+    from npswf.parallel.mesh import make_mesh
+    from npswf.io.writer import read_wf
     rng = np.random.default_rng(3)
     E = 8
     truth = make_events(cfg, cal, E, occupancy=0.04, seed=23)
@@ -187,7 +187,7 @@ def test_search_capacity_equivalence_and_overflow(small_cfg, small_cal):
     the capacity covers every present lane, and counts (never silently
     drops) the overflow when it does not."""
     import jax
-    from npswf_tpu.utils.synthetic import make_events
+    from npswf.utils.synthetic import make_events
     cfg = small_cfg
     E = 4
     truth = make_events(cfg, small_cal, E, occupancy=0.4, max_pulses=2,
@@ -245,7 +245,7 @@ def test_max_pileup_zero_drops(cfg, cal):
     block unconditionally (ref TEST_2.C:942-1020). Full geometry on purpose:
     with N = 1080 lanes all wide, a fixed 256-lane wide-bucket cap (the old
     heuristic) would drop 824 of them."""
-    from npswf_tpu.core.calibration import spline_eval_np
+    from npswf.core.calibration import spline_eval_np
     E, B, T = 1, cfg.nblocks, cfg.ntime
     # deterministic max-pileup event: 4 pulses at 25-bin spacing per block —
     # wide enough apart for the MF/TSpectrum chain to resolve all four

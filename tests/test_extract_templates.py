@@ -7,10 +7,10 @@ Ground truth: synthesize events from a known calibration, extract, compare.
 import numpy as np
 import pytest
 
-from npswf_tpu.tools.extract_templates import (estimate_template_shift,
-                                               extract_templates,
-                                               extract_templates_from_arrays)
-from npswf_tpu.utils.synthetic import make_events
+from npswf.tools.extract_templates import (estimate_template_shift,
+                                           extract_templates,
+                                           extract_templates_from_arrays)
+from npswf.utils.synthetic import make_events
 
 
 def _aligned_dev(true_y, ext_y):
@@ -56,7 +56,7 @@ def test_extracted_calibration_drives_the_pipeline(extracted):
     """End-to-end: a pipeline run with the EXTRACTED calibration reproduces
     pulse times found with the true calibration to a fraction of a bin."""
     import jax.numpy as jnp
-    from npswf_tpu.engine.pipeline import EventBatch, process_batch
+    from npswf.engine.pipeline import EventBatch, process_batch
     cfg, cal, bundle, _ = extracted
     truth = make_events(cfg, cal, 4, occupancy=0.3, max_pulses=1,
                         noise=0.4, amp_range=(40.0, 200.0), seed=12)
@@ -148,9 +148,9 @@ def test_pileup_rejected_by_isolation(small_cfg, small_cal):
 
 def test_cli_roundtrip(small_cfg, small_cal, tmp_path, monkeypatch):
     """segment file -> extract-templates CLI -> loadable bundle."""
-    from npswf_tpu.io.rawstream import (build_segment, encode_event_stream,
-                                        write_segment)
-    from npswf_tpu.tools import extract_templates as mod
+    from npswf.io.rawstream import (build_segment, encode_event_stream,
+                                    write_segment)
+    from npswf.tools import extract_templates as mod
     cfg, cal = small_cfg, small_cal
     truth = make_events(cfg, cal, 32, occupancy=1.0, max_pulses=1,
                         noise=0.4, amp_range=(40.0, 200.0), seed=16)
@@ -169,11 +169,11 @@ def test_cli_roundtrip(small_cfg, small_cal, tmp_path, monkeypatch):
     out = str(tmp_path / "cal_extracted.npz")
     # config_for_run would build the full 1080-block geometry; pin the
     # small one for the CLI path
-    monkeypatch.setattr("npswf_tpu.core.config.config_for_run",
+    monkeypatch.setattr("npswf.core.config.config_for_run",
                         lambda run: cfg)
     rc = mod.main([seg_path, out, "--no-native"])
     assert rc == 0
-    from npswf_tpu.core.calibration import CalibrationBundle
+    from npswf.core.calibration import CalibrationBundle
     loaded = CalibrationBundle.load(out)
     assert loaded.preswf.sum() == cfg.nblocks
 

@@ -3,10 +3,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from npswf_tpu.core.calibration import spline_eval_np
-from npswf_tpu.fit.errors import error_model
-from npswf_tpu.fit.lm import FitInputs, fit_waveforms
-from npswf_tpu.utils.synthetic import make_events
+from npswf.core.calibration import spline_eval_np
+from npswf.fit.errors import error_model
+from npswf.fit.lm import FitInputs, fit_waveforms
+from npswf.utils.synthetic import make_events
 
 
 def _build_inputs(cfg, cal, dtype=np.float64, n_lanes=64, max_pulses=1,
@@ -254,10 +254,10 @@ def test_fp32_matches_fp64(cfg, cal):
 def test_gaussian_model_family(cfg, cal):
     """The pluggable model family: a Gaussian-pulse fit recovers its truth."""
     import jax.numpy as jnp
-    from npswf_tpu.fit.lm import FitInputs, fit_waveforms, lm_solve, _bounds, \
+    from npswf.fit.lm import FitInputs, fit_waveforms, lm_solve, _bounds, \
         _seed_params, _to_internal
-    from npswf_tpu.models.waveform import get_model
-    from npswf_tpu.fit.errors import error_model
+    from npswf.models.waveform import get_model
+    from npswf.fit.errors import error_model
     rng = np.random.default_rng(31)
     N, P = 24, 1
     T = cfg.ntime
@@ -294,7 +294,7 @@ def test_gaussian_model_family(cfg, cal):
         cfg.lm_max_iter_stage1, cfg.lm_lambda_init)
     convn = np.asarray(conv)
     assert convn.mean() > 0.9
-    from npswf_tpu.fit.lm import _to_physical
+    from npswf.fit.lm import _to_physical
     pphys = np.asarray(_to_physical(u, lo, hi, p_seed, pm))
     dt = np.abs(pphys[convn, 1] - t_true[convn])
     assert np.median(dt) < 0.05
@@ -308,8 +308,8 @@ def test_stage3_bound_escape_rescues_adversarial_lanes(cfg, cal):
     ensemble failed at ~12% with every stuck lane pinned at a parameter
     bound (tools/solver_audit.py, SOLVER_AUDIT.md)."""
     import jax.numpy as jnp
-    from npswf_tpu.tools.solver_audit import build_fit_inputs
-    from npswf_tpu.utils.synthetic import adversarial_variants, make_events
+    from npswf.tools.solver_audit import build_fit_inputs
+    from npswf.utils.synthetic import adversarial_variants, make_events
 
     truth = make_events(cfg, cal, 2, occupancy=1.0, max_pulses=2,
                         pileup_prob=0.25, seed=7)

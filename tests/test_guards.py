@@ -10,10 +10,10 @@ import os
 import numpy as np
 import pytest
 
-from npswf_tpu.core.config import NPSConfig
-from npswf_tpu.golden.reference import decode_event_golden
-from npswf_tpu.io.decode import decode_segment
-from npswf_tpu.io.rawstream import build_segment
+from npswf.core.config import NPSConfig
+from npswf.golden.reference import decode_event_golden
+from npswf.io.decode import decode_segment
+from npswf.io.rawstream import build_segment
 
 _EMPTY_HITS = {k: np.zeros(0) for k in
                ("adc_counter", "pulse_time", "pulse_time_raw",
@@ -84,8 +84,8 @@ def test_guard_counters_reach_run_result(small_cfg, small_cal, tmp_path):
     """Bad-slot / truncated / oversize events are tallied into RunResult and
     the merged WF file's counters (the reference's printed warnings as
     counters, ref :830-836, :867-872)."""
-    from npswf_tpu.runtime.executor import run_segment
-    from npswf_tpu.io.writer import read_wf
+    from npswf.runtime.executor import run_segment
+    from npswf.io.writer import read_wf
     cfg, cal = small_cfg, small_cal
     T = cfg.ntime
     ok = np.concatenate([[0.0, float(T)], 3.0 + np.zeros(T)])
@@ -114,7 +114,7 @@ def test_mf_asymmetry_rejected():
 def test_nonunit_knot_spacing_rejected(cfg, tmp_path):
     """A calibration file whose time axis is not a unit grid must be rejected
     (the device spline assumes dx == 1; ref Interpolator handles any x)."""
-    from npswf_tpu.core.calibration import EpochManifest, load_calibration
+    from npswf.core.calibration import EpochManifest, load_calibration
     root = str(tmp_path)
     T = cfg.ntime
     xs = 0.5 * np.arange(T)              # dx = 0.5: invalid

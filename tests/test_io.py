@@ -4,14 +4,14 @@ import os
 import numpy as np
 import pytest
 
-from npswf_tpu.golden.reference import decode_event_golden
-from npswf_tpu.io import native
-from npswf_tpu.io.decode import decode_segment
-from npswf_tpu.io.rawstream import (build_segment, encode_event_stream,
-                                    read_segment, write_segment)
-from npswf_tpu.io.writer import (WFWriter, flatten_pulses, flatten_pulses_np,
-                                 iter_events_sorted, read_wf)
-from npswf_tpu.utils.synthetic import make_events
+from npswf.golden.reference import decode_event_golden
+from npswf.io import native
+from npswf.io.decode import decode_segment
+from npswf.io.rawstream import (build_segment, encode_event_stream,
+                                read_segment, write_segment)
+from npswf.io.writer import (WFWriter, flatten_pulses, flatten_pulses_np,
+                             iter_events_sorted, read_wf)
+from npswf.utils.synthetic import make_events
 
 
 def _make_segment(cfg, cal, E=6, seed=41, sparse=False):
@@ -86,7 +86,7 @@ def test_decode_bad_slot_aborts(cfg, cal):
 
 
 def test_hms_matches_golden(cfg, cal):
-    from npswf_tpu.golden.reference import hms_correction_golden
+    from npswf.golden.reference import hms_correction_golden
     truth, seg, pres = _make_segment(cfg, cal, E=4)
     dec = decode_segment(cfg, cal, seg)
     for e in range(seg.n_events):

@@ -7,13 +7,13 @@ it to the in-memory WFWriter.ingest_part reference implementation.
 import numpy as np
 import jax.numpy as jnp
 
-from npswf_tpu.engine.pipeline import make_pipeline
-from npswf_tpu.io.decode import decode_segment
-from npswf_tpu.io.merge import merge_parts
-from npswf_tpu.io.rawstream import build_segment, encode_event_stream
-from npswf_tpu.io.writer import WFWriter, read_wf
-from npswf_tpu.runtime.executor import _pad_decoded, _to_event_batch
-from npswf_tpu.utils.synthetic import make_events
+from npswf.engine.pipeline import make_pipeline
+from npswf.io.decode import decode_segment
+from npswf.io.merge import merge_parts
+from npswf.io.rawstream import build_segment, encode_event_stream
+from npswf.io.writer import WFWriter, read_wf
+from npswf.runtime.executor import _pad_decoded, _to_event_batch
+from npswf.utils.synthetic import make_events
 
 
 def _make_parts(cfg, cal, tmp_path, n_events=10, batch=4, seed=11):

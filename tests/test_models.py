@@ -1,14 +1,13 @@
 """Model-family plumbing: cfg.model_name end-to-end through the engine.
 
-Round-1 demonstrated pluggable models only via a test-local subclass hack
-(VERDICT.md missing #7); these tests run the gaussian family through
+These tests run the gaussian family through
 ``process_batch`` purely by config — model selection, the generic
 ``model_aux`` channel, and the relative-time frame (FitInputs.timeref)."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from npswf_tpu.engine.pipeline import EventBatch, process_batch
+from npswf.engine.pipeline import EventBatch, process_batch
 
 
 def _gauss_batch(cfg, cal, width, seed=3):
@@ -135,7 +134,7 @@ def test_biexp_family_through_engine(small_cfg, small_cal):
 
 
 def test_model_aux_round_trips_through_json():
-    from npswf_tpu.core.config import NPSConfig
+    from npswf.core.config import NPSConfig
     cfg = NPSConfig(model_name="gaussian", model_aux=(("width", 4.0),))
     cfg2 = NPSConfig.from_json(cfg.to_json())
     assert cfg2 == cfg
@@ -143,7 +142,7 @@ def test_model_aux_round_trips_through_json():
 
 
 def test_cli_model_flag_parses():
-    from npswf_tpu.tools.cli import build_parser
+    from npswf.tools.cli import build_parser
     args = build_parser().parse_args(
         ["run", "--model", "gaussian", "--input", "x.npz", "--out", "y.npz"])
     assert args.model == "gaussian"

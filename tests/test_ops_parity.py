@@ -3,16 +3,16 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from npswf_tpu.core.calibration import (natural_cubic_spline_coeffs,
-                                        spline_eval_np, synthetic_calibration)
-from npswf_tpu.golden.reference import (cluster_gate_golden,
-                                        find_pulses_golden,
-                                        matched_filter_golden,
-                                        tspectrum_search_golden)
-from npswf_tpu.ops.cluster_gate import cluster_gate
-from npswf_tpu.ops.matched_filter import matched_filter
-from npswf_tpu.ops.peak_search import find_pulses, tspectrum_search
-from npswf_tpu.utils.synthetic import make_events
+from npswf.core.calibration import (natural_cubic_spline_coeffs,
+                                    spline_eval_np, synthetic_calibration)
+from npswf.golden.reference import (cluster_gate_golden,
+                                    find_pulses_golden,
+                                    matched_filter_golden,
+                                    tspectrum_search_golden)
+from npswf.ops.cluster_gate import cluster_gate
+from npswf.ops.matched_filter import matched_filter
+from npswf.ops.peak_search import find_pulses, tspectrum_search
+from npswf.utils.synthetic import make_events
 
 
 def _lanes(cfg, cal, n_events=2, seed=3, occupancy=0.15, **kw):
@@ -153,7 +153,7 @@ def test_spline_natural_boundary_and_knots():
 
 
 def test_spline_eval_gate(cfg, cal):
-    from npswf_tpu.ops.spline import spline_eval_grad
+    from npswf.ops.spline import spline_eval_grad
     b = 13
     t = jnp.asarray(np.linspace(-5.0, 115.0, 241))
     val, dval = spline_eval_grad(cfg, jnp.asarray(cal.spline_coeffs[b])[None],
@@ -181,7 +181,7 @@ def test_find_pulses_edge_peaks_match_golden(cfg, cal):
     x = np.arange(T, dtype=np.float64)
     sig = np.zeros((n_lanes, T))
     blocks = rng.integers(0, cfg.nblocks, n_lanes)
-    from npswf_tpu.core.calibration import spline_eval_np
+    from npswf.core.calibration import spline_eval_np
     for i, b in enumerate(blocks):
         sig[i] = 0.5 * rng.standard_normal(T)
         # one pulse near each edge of the search window plus one mid-window;

@@ -9,10 +9,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from npswf_tpu.engine.pipeline import EventBatch, process_batch
-from npswf_tpu.parallel.mesh import (make_mesh, make_sharded_pipeline,
-                                     shard_calibration, shard_event_batch)
-from npswf_tpu.utils.synthetic import make_events
+from npswf.engine.pipeline import EventBatch, process_batch
+from npswf.parallel.mesh import (make_mesh, make_sharded_pipeline,
+                                 shard_calibration, shard_event_batch)
+from npswf.utils.synthetic import make_events
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8,
                                 reason="needs 8 virtual devices")
@@ -59,8 +59,7 @@ def test_sharded_matches_single_device(cfg, cal, n_data, n_block):
 
 def test_halo_exchange_cluster_sums(cfg, cal):
     """Cluster sums across row-shard boundaries must match the local stencil."""
-    from npswf_tpu.ops.cluster_gate import cluster_sums
-    from npswf_tpu.parallel.mesh import shard_map
+    from npswf.ops.cluster_gate import cluster_sums
     rng = np.random.default_rng(3)
     E = 2
     sig = jnp.asarray(rng.standard_normal((E, cfg.nblocks, cfg.ntime)))
@@ -72,9 +71,9 @@ def test_halo_exchange_cluster_sums(cfg, cal):
         return cluster_sums(cfg, x, block_axis=cfg.mesh_block_axis,
                             block_shards=4)
 
-    out = jax.jit(shard_map(body, mesh,
-                            in_specs=(P("data", "block", None),),
-                            out_specs=P("data", "block", None)))(sig)
+    out = jax.jit(jax.shard_map(body, mesh=mesh,
+                                in_specs=(P("data", "block", None),),
+                                out_specs=P("data", "block", None)))(sig)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref), rtol=1e-12)
 
 

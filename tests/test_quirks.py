@@ -5,11 +5,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from npswf_tpu.core.calibration import (EpochManifest, load_calibration,
-                                        synthetic_calibration,
-                                        synthetic_pulse_shape)
-from npswf_tpu.core.config import NPSConfig, calodist_for_run
-from npswf_tpu.fit.errors import error_model
+from npswf.core.calibration import (EpochManifest, load_calibration,
+                                    synthetic_calibration,
+                                    synthetic_pulse_shape)
+from npswf.core.config import NPSConfig, calodist_for_run
+from npswf.fit.errors import error_model
 
 
 def _write_ref_calib(cfg, root, run_dir="6171-6183/fit_e_runs/RWF",
@@ -92,8 +92,8 @@ def test_error_floor_value(cfg):
 def test_timewf_closest_to_zero_selection(cfg, cal):
     """timewf/amplwf pick the pulse with |time| nearest zero, not the first
     (ref TEST_2.C:999-1016)."""
-    from npswf_tpu.engine.pipeline import EventBatch, process_batch
-    from npswf_tpu.core.calibration import spline_eval_np
+    from npswf.engine.pipeline import EventBatch, process_batch
+    from npswf.core.calibration import spline_eval_np
     rng = np.random.default_rng(4)
     E, B, T = 1, cfg.nblocks, cfg.ntime
     sig = np.zeros((E, B, T)) + 0.3 * rng.standard_normal((E, B, T))
@@ -128,8 +128,8 @@ def test_short_final_block_uses_full_window(cfg, cal):
     (:1083-1107) by the LAST decoded block's nsamp — a data-dependent leak
     we deliberately define away. Pin our behavior: a short trailing block in
     the readout must not change any other block's errors or diagnostics."""
-    from npswf_tpu.engine.diagnostics import block_diagnostics
-    from npswf_tpu.golden.reference import decode_event_golden
+    from npswf.engine.diagnostics import block_diagnostics
+    from npswf.golden.reference import decode_event_golden
     rng = np.random.default_rng(9)
     T = cfg.ntime
     wf_a = 10.0 + rng.standard_normal(T)        # full-length block 3
@@ -167,8 +167,8 @@ def test_fit_is_local_minimum(cfg, cal):
     """Independent optimality check: perturbing any free parameter of a
     converged fit increases chi2 (true local minimum, not solver artifact)."""
     from tests.test_fit import _build_inputs
-    from npswf_tpu.fit.lm import fit_waveforms
-    from npswf_tpu.models.waveform import get_model
+    from npswf.fit.lm import fit_waveforms
+    from npswf.models.waveform import get_model
     inp, *_ = _build_inputs(cfg, cal, n_lanes=12, seed=14)
     res = fit_waveforms(cfg, inp)
     conv = np.asarray(res.converged)

@@ -6,12 +6,12 @@ import sys
 import numpy as np
 import pytest
 
-import npswf_tpu.runtime.executor as executor_mod
-from npswf_tpu.io.rawstream import read_segment
-from npswf_tpu.io.writer import iter_events_sorted, read_wf
-from npswf_tpu.runtime.executor import run_segment
-from npswf_tpu.tools.cli import main as cli_main
-from npswf_tpu.tools.plotstats import validate
+import npswf.runtime.executor as executor_mod
+from npswf.io.rawstream import read_segment
+from npswf.io.writer import iter_events_sorted, read_wf
+from npswf.runtime.executor import run_segment
+from npswf.tools.cli import main as cli_main
+from npswf.tools.plotstats import validate
 
 
 @pytest.fixture(scope="module")
@@ -26,7 +26,7 @@ def synth_paths(tmp_path_factory, cfg):
 
 
 def test_run_segment_end_to_end(cfg, synth_paths, tmp_path):
-    from npswf_tpu.core.calibration import CalibrationBundle
+    from npswf.core.calibration import CalibrationBundle
     seg_path, cal_path = synth_paths
     cal = CalibrationBundle.load(cal_path)
     seg = read_segment(seg_path)
@@ -55,8 +55,8 @@ def test_run_segment_mesh_matches_unsharded(cfg, synth_paths, tmp_path):
     import jax
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 virtual devices")
-    from npswf_tpu.core.calibration import CalibrationBundle
-    from npswf_tpu.parallel.mesh import make_mesh
+    from npswf.core.calibration import CalibrationBundle
+    from npswf.parallel.mesh import make_mesh
     seg_path, cal_path = synth_paths
     cal = CalibrationBundle.load(cal_path)
     seg = read_segment(seg_path)
@@ -80,7 +80,7 @@ def test_run_segment_mesh_matches_unsharded(cfg, synth_paths, tmp_path):
 
 
 def test_resume_after_crash(cfg, synth_paths, tmp_path, monkeypatch):
-    from npswf_tpu.core.calibration import CalibrationBundle
+    from npswf.core.calibration import CalibrationBundle
     seg_path, cal_path = synth_paths
     cal = CalibrationBundle.load(cal_path)
     seg = read_segment(seg_path)
@@ -118,18 +118,18 @@ def test_cli_subprocess_end_to_end(tmp_path):
     out = str(tmp_path / "o.npz")
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     r1 = subprocess.run(
-        [sys.executable, "-m", "npswf_tpu.tools.cli", "synth", "--events", "6",
+        [sys.executable, "-m", "npswf.tools.cli", "synth", "--events", "6",
          "--out", seg, "--calib-out", calp, "--cpu"],
         capture_output=True, text=True, env=env, timeout=300)
     assert r1.returncode == 0, r1.stderr
     r2 = subprocess.run(
-        [sys.executable, "-m", "npswf_tpu.tools.cli", "run", "--input", seg,
+        [sys.executable, "-m", "npswf.tools.cli", "run", "--input", seg,
          "--calib", calp, "--out", out, "--batch-size", "4", "--cpu"],
         capture_output=True, text=True, env=env, timeout=600)
     assert r2.returncode == 0, r2.stderr
     assert "fits succeed" in r2.stdout
     r3 = subprocess.run(
-        [sys.executable, "-m", "npswf_tpu.tools.cli", "validate", out],
+        [sys.executable, "-m", "npswf.tools.cli", "validate", out],
         capture_output=True, text=True, env=env, timeout=300)
     assert r3.returncode == 0, r3.stdout + r3.stderr
     assert "index OK" in r3.stdout
@@ -139,7 +139,7 @@ def test_validate_root_input(monkeypatch):
     """plotstats accepts a ROOT WF tree (the reference validator's input),
     via a stubbed uproot like the converter tests."""
     import types
-    from npswf_tpu.tools.plotstats import main as ps_main
+    from npswf.tools.plotstats import main as ps_main
 
     class FakeBranch:
         def __init__(self, d):
@@ -176,7 +176,7 @@ def test_validate_root_input(monkeypatch):
 
 def test_cli_delegated_subcommands(tmp_path):
     """Pass-through tool wrappers forward argv after `--` to the tool's main."""
-    from npswf_tpu.tools.cli import build_parser, _DELEGATED
+    from npswf.tools.cli import build_parser, _DELEGATED
     ap = build_parser()
     # every delegated tool is registered and parses
     for name in _DELEGATED:
@@ -190,8 +190,8 @@ def test_cli_delegated_subcommands(tmp_path):
 
 
 def test_diagnostics_plots(cfg, synth_paths, tmp_path):
-    from npswf_tpu.core.calibration import CalibrationBundle
-    from npswf_tpu.tools.diagnostics import make_event_plots
+    from npswf.core.calibration import CalibrationBundle
+    from npswf.tools.diagnostics import make_event_plots
     seg_path, cal_path = synth_paths
     cal = CalibrationBundle.load(cal_path)
     seg = read_segment(seg_path)
@@ -206,10 +206,10 @@ def test_diagnostics_plots(cfg, synth_paths, tmp_path):
 def test_empty_and_single_event_segments(small_cfg, small_cal, tmp_path):
     """Degenerate segment sizes: zero events (no parts to merge) and one
     event (padding-dominated batch) must both produce valid WF files."""
-    from npswf_tpu.io.rawstream import build_segment, encode_event_stream
-    from npswf_tpu.io.writer import read_wf
-    from npswf_tpu.runtime.executor import run_segment
-    from npswf_tpu.utils.synthetic import make_events
+    from npswf.io.rawstream import build_segment, encode_event_stream
+    from npswf.io.writer import read_wf
+    from npswf.runtime.executor import run_segment
+    from npswf.utils.synthetic import make_events
 
     cfg = small_cfg
     seg0 = build_segment(cfg, [], [], evt=np.zeros(0), runnum=np.zeros(0))
@@ -240,11 +240,11 @@ def test_writer_packet_matches_dense_path(cfg, synth_paths, tmp_path):
     file identical to the legacy dense-fetch path, column for column."""
     import jax
     import jax.numpy as jnp
-    from npswf_tpu.core.calibration import CalibrationBundle
-    from npswf_tpu.engine.pipeline import make_pipeline, make_writer_pack
-    from npswf_tpu.io.decode import decode_segment
-    from npswf_tpu.io.writer import WFWriter
-    from npswf_tpu.runtime.executor import _pad_decoded, _to_event_batch
+    from npswf.core.calibration import CalibrationBundle
+    from npswf.engine.pipeline import make_pipeline, make_writer_pack
+    from npswf.io.decode import decode_segment
+    from npswf.io.writer import WFWriter
+    from npswf.runtime.executor import _pad_decoded, _to_event_batch
 
     seg_path, cal_path = synth_paths
     cal = CalibrationBundle.load(cal_path)
@@ -279,13 +279,13 @@ def test_sparse_packet_roundtrip_and_overflow(cfg, synth_paths, tmp_path):
     an undersized lane_cap must flag overflow instead of corrupting."""
     import jax
     import jax.numpy as jnp
-    from npswf_tpu.core.calibration import CalibrationBundle
-    from npswf_tpu.engine.pipeline import (flatten_packet,
-                                           flatten_packet_slab,
-                                           make_pipeline, make_writer_pack,
-                                           unflatten_packet)
-    from npswf_tpu.io.decode import decode_segment
-    from npswf_tpu.runtime.executor import _pad_decoded, _to_event_batch
+    from npswf.core.calibration import CalibrationBundle
+    from npswf.engine.pipeline import (flatten_packet,
+                                       flatten_packet_slab,
+                                       make_pipeline, make_writer_pack,
+                                       unflatten_packet)
+    from npswf.io.decode import decode_segment
+    from npswf.runtime.executor import _pad_decoded, _to_event_batch
 
     seg_path, cal_path = synth_paths
     cal = CalibrationBundle.load(cal_path)
@@ -343,7 +343,7 @@ def test_run_segment_chained_matches_unchained(cfg, synth_paths, tmp_path):
     chains of 2, 2 ranges + a 1-range tail through the single-batch
     path) and all guard counters."""
     import numpy as np
-    from npswf_tpu.core.calibration import CalibrationBundle
+    from npswf.core.calibration import CalibrationBundle
     seg_path, cal_path = synth_paths
     cal = CalibrationBundle.load(cal_path)
     seg = read_segment(seg_path)

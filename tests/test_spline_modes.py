@@ -2,7 +2,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from npswf_tpu.ops.spline import spline_eval_grad
+from npswf.ops.spline import spline_eval_grad
 
 
 def test_onehot_matches_gather_exactly(cfg, cal):
@@ -22,7 +22,7 @@ def test_onehot_matches_gather_exactly(cfg, cal):
 
 def test_fit_same_result_under_onehot(cfg, cal):
     from tests.test_fit import _build_inputs
-    from npswf_tpu.fit.lm import fit_waveforms
+    from npswf.fit.lm import fit_waveforms
     inp, t_true, a_true, ped, npul = _build_inputs(cfg, cal, n_lanes=16, seed=8,
                                                    dtype=np.float32)
     r1 = fit_waveforms(cfg.replace(spline_mode="gather"), inp)
